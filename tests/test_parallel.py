@@ -94,7 +94,7 @@ def test_mesh_divisibility_check():
         local_batch_size(1001, mesh)
 
 
-# -- production encode path over the mesh (VERDICT.md round-1 item 1) ----
+# -- production encode path over the mesh -----------------------------------
 
 
 @pytest.fixture(scope="module")
@@ -154,7 +154,7 @@ def test_encode_batch_mesh_none_single_device(gpt2_specs):
 
 def test_mesh_wave_fusion_multi_tile(gpt2_specs):
     """A wave spanning several buckets runs as ONE fused jit dispatch
-    on the sharded path (VERDICT r3 next #8) with exact parity."""
+    on the sharded path with exact parity."""
     from tokenizer_tpu.engine import TikTokenizer
     from tokenizer_tpu.parallel.mesh import data_mesh
     from tokenizer_tpu.tpu import TpuTokenizer

@@ -4,7 +4,7 @@ The reference is a transliteration of tiktoken's ``byte_pair_merge``
 (TikTokenizer.cs:14-18, tikTokenizer.ts:55-58), so the installed
 ``tiktoken`` package (Rust bindings, constructed offline from our parsed
 gpt2 ranks) is a second independent oracle.  Fuzzes the host engine and
-the packed TPU path on adversarial inputs covering every branch of the
+the packed device path on adversarial inputs covering every branch of the
 regex patterns.
 """
 

@@ -12,7 +12,7 @@ two earlier tokens), combined with the REAL pattern strings and special
 algorithm the reference transliterated (TikTokenizer.cs:14-18) — so
 agreement here validates our pattern-2/3 regex handling, special
 scanning, and merge loop end-to-end, on both the host engine and the
-packed TPU path.
+packed device path.
 """
 
 import random

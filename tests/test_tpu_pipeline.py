@@ -432,7 +432,7 @@ def test_bounded_dedup_reset(gpt2_vocab):
 
 @pytest.mark.parametrize("mesh,fuse", [(None, True), ("auto", True), (None, False)])
 def test_generational_dedup_no_sawtooth(gpt2_vocab, mesh, fuse):
-    """VERDICT r3 next #4: past max_unique_rows the dedup must degrade
+    """Past max_unique_rows the dedup must degrade
     SMOOTHLY — hot pieces resurrect from the frozen old generation by
     row copy (dedup_gen_copies), never re-merging a fully cold chunk —
     while total live rows stay bounded.  mesh=None exercises the fused

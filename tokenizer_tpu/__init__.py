@@ -1,15 +1,15 @@
-"""tokenizer_tpu — TPU-native tiktoken-compatible BPE tokenization.
+"""tokenizer_tpu — tiktoken-compatible BPE tokenization with a JAX device path.
 
 A from-scratch reimplementation of the microsoft/Tokenizer capability
 set (tiktoken-parity encode / trim-suffix / trim-prefix / decode with
 special-token handling for gpt2, r50k/p50k/p50k_edit, cl100k_base and
-o200k_base), architected TPU-first: host regex pre-split and byte
-packing feed a vectorized merge kernel (XLA / Pallas) with the pair
-table resident on-chip, data-parallel over a `jax.sharding.Mesh`.
+o200k_base): a native host pre-split and byte packing feed a jitted
+XLA merge kernel with the pair table resident on the device,
+data-parallel over a `jax.sharding.Mesh`.
 
 Public surface mirrors the reference's (`ITokenizer.cs:7-46`,
 `tokenizer_ts/src/index.ts:1-11`): the :class:`TikTokenizer` engine,
-builder functions, and registry getters — plus the TPU bulk pipeline.
+builder functions, and registry getters — plus the device bulk pipeline.
 """
 
 from .bpe import byte_pair_encode
@@ -64,15 +64,6 @@ def __getattr__(name):
     # Lazy: importing TpuTokenizer pulls in jax; the host engine and
     # builders must stay importable on jax-free hosts (and fast
     # everywhere).  `create_*(use_tpu=True)` lazy-imports the same way.
-    if name == "TpuTokenizer":
-        from .tpu import TpuTokenizer
-
-        return TpuTokenizer
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def __getattr__(name):
-    # Lazy: importing the TPU pipeline pulls in jax; keep the host path light.
     if name == "TpuTokenizer":
         from .tpu import TpuTokenizer
 

@@ -136,7 +136,7 @@ def _cmd_corpus(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="tokenizer-tpu",
-        description="TPU-native tiktoken-compatible BPE tokenizer",
+        description="tiktoken-compatible BPE tokenizer with a JAX device path",
     )
     sub = parser.add_subparsers(dest="cmd")
 

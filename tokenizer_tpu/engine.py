@@ -23,6 +23,8 @@ bit-for-bit; tests enforce that.
 from __future__ import annotations
 
 import os
+import re
+from functools import partial
 from typing import (
     IO,
     Collection,
@@ -36,9 +38,8 @@ from typing import (
     Union,
 )
 
-import regex as _regex
-
 from .bpe import byte_pair_encode
+from .models.registry import REGEX_PATTERN_1, REGEX_PATTERN_2, REGEX_PATTERN_3
 from .utils.lru import DEFAULT_CACHE_SIZE, LRUCache
 from .utils.text import utf16_len, utf16_slice, utf8_bytes
 from .vocab import Vocabulary, load_tiktoken_file
@@ -60,9 +61,43 @@ class TrimResult(NamedTuple):
     text: str
 
 
-def _escape_special_regex(tok: str) -> str:
-    """escapeRegExp (tikTokenizer.ts:50-52) — Python's escape is a superset."""
-    return _regex.escape(tok)
+#: Registry pattern -> native scanner id (runtime/native/presplit.cpp).
+NATIVE_PATTERN_IDS = {REGEX_PATTERN_1: 1, REGEX_PATTERN_2: 2, REGEX_PATTERN_3: 3}
+
+
+def _piece_splitter(pattern: str):
+    """``split(text, start, end) -> pieces of text[start:end]``.
+
+    Where the third-party ``regex`` package is installed, the pattern
+    compiles with it: the reference's own engine, matched lazily, so a
+    trim that stops early splits no further and the per-call cost on
+    short texts stays a few microseconds.  That also keeps this engine,
+    the parity oracle, independent of the native scanner that the bulk
+    pipeline (:mod:`tokenizer_tpu.tpu`) runs.  Without ``regex`` the
+    registry's three patterns pre-split through the native scanner
+    (whole segment per call); any other pattern then has no engine
+    (stdlib ``re`` has no ``\\p{..}`` classes).
+    """
+    try:
+        import regex
+    except ImportError:
+        regex = None
+    if regex is not None:
+        finditer = regex.compile(pattern).finditer
+        return lambda text, start, end: (
+            m.group(0) for m in finditer(text, start, end)
+        )
+    pid = NATIVE_PATTERN_IDS.get(pattern)
+    if pid is not None:
+        from .runtime import native
+
+        if native.available():
+            return partial(native.split_text, pattern_id=pid)
+    raise ImportError(
+        "this pre-split pattern needs the 'regex' package: the native"
+        " scanner serves only the registry's patterns, and only where"
+        " a C++ compiler can build it"
+    )
 
 
 class TikTokenizer:
@@ -103,16 +138,16 @@ class TikTokenizer:
         self.decoder: Dict[int, bytes] = vocab.decoder
 
         self.pattern = pattern
-        self._re = _regex.compile(pattern)
+        self._split = _piece_splitter(pattern)
         self.special_tokens_encoder: Dict[str, int] = dict(special_tokens)
         self.special_tokens_decoder: Dict[int, str] = {
             v: k for k, v in self.special_tokens_encoder.items()
         }
         if self.special_tokens_encoder:
-            self._specials_re = _regex.compile(
-                "|".join(
-                    _escape_special_regex(s) for s in self.special_tokens_encoder
-                )
+            # escapeRegExp (tikTokenizer.ts:50-52): an alternation of
+            # literals, which stdlib ``re`` matches like the reference.
+            self._specials_re = re.compile(
+                "|".join(re.escape(s) for s in self.special_tokens_encoder)
             )
         else:
             self._specials_re = None
@@ -150,7 +185,7 @@ class TikTokenizer:
 
     def _find_next_special(
         self, text: str, start: int, allowed: Optional[set]
-    ) -> Tuple[Optional["_regex.Match"], int]:
+    ) -> Tuple[Optional[re.Match], int]:
         """findNextSpecialToken (tikTokenizer.ts:123-144, TikTokenizer.cs:230-241).
 
         Scans for the next special-token occurrence from ``start``; any
@@ -185,8 +220,8 @@ class TikTokenizer:
         self, text: str, ids: List[int], start: int, end: int
     ) -> None:
         """encodeByIndex (tikTokenizer.ts:192-223, TikTokenizer.cs:250-274)."""
-        for m in self._re.finditer(text, start, end):
-            ids.extend(self._encode_piece(m.group(0)))
+        for piece in self._split(text, start, end):
+            ids.extend(self._encode_piece(piece))
 
     def encode(
         self, text: str, allowed_special: AllowedSpecial = None
@@ -288,8 +323,7 @@ class TikTokenizer:
         encode_length: int,
     ) -> Tuple[int, int, bool]:
         """encodeTrimSuffixByIndex (tikTokenizer.ts:225-291)."""
-        for m in self._re.finditer(text, start, end):
-            piece = m.group(0)
+        for piece in self._split(text, start, end):
             cached = self.cache.get(piece)
             if cached is not None:
                 if token_count + len(cached) <= max_token_count:
@@ -356,8 +390,7 @@ class TikTokenizer:
         past the budget (so the caller's ``>= max`` check breaks the
         outer loop) but neither ids nor encode_length include the piece.
         """
-        for m in self._re.finditer(text, start, end):
-            piece = m.group(0)
+        for piece in self._split(text, start, end):
             cached = self.cache.get(piece)
             if cached is not None:
                 toks = cached
@@ -407,8 +440,7 @@ class TikTokenizer:
         while True:
             m, end = self._find_next_special(text, start, allowed)
             if end > start:
-                for pm in self._re.finditer(text, start, end):
-                    piece = pm.group(0)
+                for piece in self._split(text, start, end):
                     cached = self.cache.get(piece)
                     if cached is not None:
                         toks = cached

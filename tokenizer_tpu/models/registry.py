@@ -1,6 +1,6 @@
 """Encoding/model registry: the configuration tables of the framework.
 
-This is the TPU build's equivalent of the reference's builder registries
+This is the equivalent of the reference's builder registries
 (`Tokenizer_C#/TokenizerLib/TokenizerBuilder.cs:14-66` and
 `tokenizer_ts/src/tokenizerBuilder.ts:6-55`): model-name -> encoding maps
 (exact and prefix), per-encoding regex pre-split patterns, special-token

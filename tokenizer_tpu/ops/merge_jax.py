@@ -2,10 +2,11 @@
 
 Bit-exact device implementation of :func:`merge_packed_numpy` (which is
 itself bit-exact with the host oracle).  All arithmetic is int32/uint32
-— TPU-native, no x64.  The layout is ``[L, B]`` column-per-piece: the
-lane (last) dimension is the batch, so every elementwise op and the
-probe gathers vectorize across pieces on the VPU, and the per-iteration
-argmin is a sublane reduction.
+(hashing with wraparound, gathers, argmin) — no floats, no x64.  The
+layout is ``[L, B]`` column-per-piece: the minor dimension is the batch,
+so every elementwise op and the probe gathers vectorize across pieces,
+and the per-iteration argmin reduces over L.  XLA compiles it for
+whichever backend JAX runs on; there is no hand-written kernel.
 
 The merge loop runs under ``lax.while_loop`` — one *global-min merge
 per column* per iteration (the reference's exact semantics,

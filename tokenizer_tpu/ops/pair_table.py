@@ -4,7 +4,7 @@ The reference probes a byte-slice-keyed dictionary inside its hot loop
 (C# ``Dictionary<byte[],int>`` with ByteArrayComparer, `Tokenizer_C#/
 TokenizerLib/Utils/BytePairComparer.cs:8-43`; TS ``BinaryMap`` trie,
 `tokenizer_ts/src/bytePairEncode.ts:14-64`).  Neither structure maps to
-a vector unit, so the TPU build replaces byte-slice keys with an EXACT
+a vector unit, so this build replaces byte-slice keys with an EXACT
 reformulation: during tiktoken's merge loop every segment is itself a
 vocab token (segments start as single bytes — all 256 are in every
 tiktoken vocab — and are only ever replaced by vocab tokens), so every
@@ -15,14 +15,14 @@ vocab tokens, the mapping ``(left_id, right_id) -> merged_id`` — keys
 are exact id pairs compared in full, no byte hashing, no false
 positives.
 
-Layout is TPU-native: **pure 32-bit arithmetic** (TPUs have no native
-64-bit vector ops and JAX runs 32-bit by default).  Keys live as two
+Layout is **pure 32-bit arithmetic** (JAX runs 32-bit by default, and
+32-bit integer ops are native on every accelerator backend).  Keys live as two
 parallel int32 arrays; the slot hash is a Murmur-style uint32 mix of
 the pair followed by a Fibonacci multiply-shift.  Open addressing with
 linear probing; the probe bound is verified at build time so device
 probe loops have a static trip count.  Arrays are plain numpy; the
 device pipeline uploads them once per vocabulary (a few MB, replicated
-per chip — SURVEY.md §2.3: the rank table is never sharded).
+per device — SURVEY.md §2.3: the rank table is never sharded).
 
 Whole-piece parity: the reference short-circuits pieces whose full
 bytes are a single vocab token (TikTokenizer.cs:261-265).  For real BPE
@@ -120,9 +120,7 @@ class PairTable:
         right_a = np.asarray(rights, dtype=np.int32)
         merged_a = np.asarray(merged, dtype=np.int32)
 
-        # Load factor <= 0.5, minimum 1<<7 slots (128 = one TPU vreg of
-        # lanes, the largest table the Pallas kernel's vreg-local
-        # dynamic gather can address — see ops/merge_pallas.py).
+        # Load factor <= 0.5, minimum 1<<7 slots.
         slot_bits = 7
         while (1 << slot_bits) < 2 * max(len(left_a), 1):
             slot_bits += 1

@@ -18,22 +18,19 @@ def data_mesh(
     Multi-host: ``jax.devices()`` already enumerates the global device
     set after ``jax.distributed.initialize`` (see
     :mod:`tokenizer_tpu.parallel.multihost`), so the same call shape
-    covers single-chip, single-host and pod-slice runs.
+    covers single-device, single-host and multi-host runs.
     """
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:
         if n_devices > len(devices):
             # Silently building a smaller mesh than asked for once let a
-            # "sharded" fuzz campaign run 10k iterations on ONE device
-            # (the CI image pins jax to the single TPU unless the env
-            # var is made authoritative) — fail loudly instead.
+            # "sharded" fuzz campaign run on ONE device — fail loudly.
             raise ValueError(
                 f"data_mesh({n_devices}) but only {len(devices)} device(s)"
                 " visible; for a virtual CPU mesh set JAX_PLATFORMS=cpu"
                 " XLA_FLAGS=--xla_force_host_platform_device_count=N"
-                " (and make JAX_PLATFORMS authoritative before jax"
-                " initializes: jax.config.update('jax_platforms', ...))"
+                " before jax initializes"
             )
         devices = devices[:n_devices]
     return jax.sharding.Mesh(np.asarray(devices), ("data",))

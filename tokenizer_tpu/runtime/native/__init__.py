@@ -3,7 +3,8 @@
 The shared library builds once per machine with the system g++ (no
 pybind11 dependency — plain C ABI) into the user cache dir; a missing
 toolchain degrades gracefully (``available()`` returns False and
-callers fall back to the python `regex` path).
+callers fall back to the python `regex` path, which then must be
+installed).
 """
 
 from __future__ import annotations
@@ -17,9 +18,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ...utils.text import utf8_bytes
+
 __all__ = [
     "available",
     "presplit",
+    "split_text",
     "bpe_encode",
     "bpe_encode_batch",
     "bpe_encode_batch_spans",
@@ -397,6 +401,27 @@ def presplit(
     return out[:n]
 
 
+def split_text(text: str, start: int, end: int, *, pattern_id: int) -> list:
+    """The pre-split pieces of ``text[start:end]`` as str slices.
+
+    Pieces are cut from the original string, so a lone surrogate stays
+    in its piece: the scanner sees its U+FFFD stand-in
+    (:func:`utf8_bytes`), which takes the same three bytes.
+    """
+    seg = text[start:end]
+    data = utf8_bytes(seg)
+    ends = presplit(data, pattern_id)
+    if len(data) != len(seg):
+        # Byte ends -> code-point ends through each code point's width.
+        cps = np.frombuffer(seg.encode("utf-32-le", "surrogatepass"), np.uint32)
+        widths = (
+            1 + (cps >= 0x80).astype(np.int64) + (cps >= 0x800) + (cps >= 0x10000)
+        )
+        ends = np.searchsorted(np.cumsum(widths), ends) + 1
+    cuts = ends.tolist()
+    return [seg[a:b] for a, b in zip([0] + cuts[:-1], cuts)]
+
+
 class SplitContext:
     """Persistent native split + interning context (one per tokenizer).
 
@@ -711,10 +736,9 @@ class SplitContext:
             self._emit_pool = pool
             # Calibrate the "no external views" refcount IN THIS EXACT
             # loop shape: the interpreter's transient stack/iterator
-            # references vary by version (3.12 measures 4 where 3.11
-            # measured 3), and a wrong constant silently disables reuse
-            # — which on this VM costs 0.5-0.8 s of first-touch page
-            # faults per fresh 32 MB buffer (measured).
+            # references vary by interpreter version, and a wrong
+            # constant silently disables reuse — which costs first-touch
+            # page faults on every fresh multi-MB buffer.
             probe = [np.empty(1, np.int32)]
             for _j, _b in enumerate(probe):
                 self._free_refs = sys.getrefcount(_b)
@@ -1005,9 +1029,8 @@ def bpe_encode_batch_spans(
     (int32, -1 = no hit) optionally short-circuits whole-piece encoder
     hits; omitting it is exact whenever unreachable tokens were
     filtered upstream (merging a reachable vocab token reproduces its
-    id).  Per-thread merge scratch is reused across pieces — the
-    per-call allocation cost that made one-ctypes-call-per-piece
-    ~100 us/piece.
+    id).  Per-thread merge scratch is reused across pieces, avoiding
+    the per-call allocations of one ctypes call per piece.
     """
     lib = _load()
     if lib is None:

@@ -1,7 +1,7 @@
 // Native pre-tokenizer: the three tiktoken regex pattern generations as
 // hand-rolled scanners over UTF-8, plus single-pass piece deduplication.
 //
-// This is the TPU framework's native host component (SURVEY.md §2.2):
+// This is the framework's native host component (SURVEY.md §2.2):
 // the reference's pre-split runs a backtracking regex engine
 // (TokenizerBuilder.cs:112,140; tokenizerBuilder.ts:66-89) at a few
 // MB/s; these scanners implement the exact same leftmost-alternation
@@ -473,7 +473,7 @@ static int64_t next_piece_p3(const uint8_t* s, int64_t i, int64_t n) {
   bool prefixable = !is_crlf(c.cp) && !(c.fl & (F_L | F_N));
 
   // Class dispatch replaces the naive try-every-alternative order
-  // (exactly equivalent, ~2x fewer scanner calls on mixed text):
+  // (exactly equivalent, fewer scanner calls on mixed text):
   //  * every letter carries F_UPR or F_LWR (Lu/Lt -> UPR, Ll -> LWR,
   //    Lm/Lo/M -> both), so the NO-PREFIX letter alts can only match
   //    when c is a letter;
@@ -550,7 +550,7 @@ static inline next_fn pick(int pattern) {
 }
 
 // Long-piece interning hash (pieces > 8 bytes): 8 bytes per round of
-// xor-multiply-shift, ~8x fewer dependent ops than a per-byte chain on
+// xor-multiply-shift, far fewer dependent ops than a per-byte chain on
 // the multi-hundred-byte `\p{L}+` runs CJK text produces.  Only
 // internal consistency within one process matters (the table never
 // leaves the Ctx); the memcmp in the probe is the correctness arbiter.
@@ -661,8 +661,8 @@ static inline int32_t tt_pair_rank(int32_t l, int32_t r, const int32_t* kl,
 namespace {
 
 // Reusable per-thread merge scratch: the per-call vector/priority_queue
-// allocations dominated short-piece merges (~100 us/piece measured
-// through ctypes), so the batch entry point amortizes them away.
+// allocations dominated short-piece merges through ctypes, so the batch
+// entry point amortizes them away.
 // Thread-local BYTE-pair rank memo: every piece's FIRST probe round is
 // byte-id x byte-id (the byte-to-id map covers 0..255), so a direct
 // collision-free 256x256 table answers roughly half of all probes from
@@ -680,13 +680,11 @@ constexpr int64_t BP_MEMO = 256 * 256;  // int32 -> 256 KB per thread
 // tagged direct-mapped cache serves those from L2.  Separate is the
 // point: an earlier experiment that shared ONE table measured slower
 // because high-id pairs evicted the hot byte pairs (comment above).
-// MEASURED (r5 A/B, this box): cold e2e NEUTRAL (72 vs 73 MB/s ± run
-// noise, steady unchanged) — the CI box's 260 MB L3 keeps the whole
-// 25 MB pair table cache-resident, so the probes this tier
-// short-circuits were already ~L3-cheap.  Kept because production
-// hosts with ordinary (1–2 MB/core) L3 pay DRAM per probe, which is
-// exactly the case this tier converts to an L2 hit; worst case
-// (one-shot pairs) is ~2 ALU + one L2 line per miss.
+// An earlier host with an L3 large enough to hold the whole pair table
+// measured this tier neutral end to end; it is kept because hosts with
+// an ordinary per-core L3 pay DRAM per probe, which is exactly the case
+// this tier converts to an L2 hit; worst case (one-shot pairs) is ~2
+// ALU + one L2 line per miss.  Not measured on the H100 box's host.
 // Thread-private via BpeScratch; ranks immutable per vocab.
 struct PairMemoEnt {
   int32_t l, r, rank;  // l == -1 marks empty (ids are >= 0)
@@ -760,14 +758,12 @@ static inline uint64_t heap_pop(std::vector<uint64_t>& h) {
 }
 
 // Small-piece merge: regex pieces average ~4 bytes, where the heap
-// reformulation's allocation/lazy-invalidation machinery costs ~690 ns
-// per piece (measured) — the reference's own O(n^2) first-min scan
-// (BytePairEncoder.cs:45-64) over stack arrays is both bit-exact BY
-// CONSTRUCTION and several times faster at n <= 16 (<= 15 merges x
-// <= 15-wide scans in registers).  MEASURED threshold: 48 was SLOWER
-// (2585 vs 2147 ns/piece on realistic 41-byte-avg cold uniques — the
-// O(n^2) rescans overtake the heap's machinery well before that), so
-// 16 stands.
+// reformulation's allocation/lazy-invalidation machinery dominates —
+// the reference's own O(n^2) first-min scan (BytePairEncoder.cs:45-64)
+// over stack arrays is both bit-exact BY CONSTRUCTION and faster at
+// n <= 16 (<= 15 merges x <= 15-wide scans in registers).  A threshold
+// of 48 was slower on cold uniques: the O(n^2) rescans overtake the
+// heap's machinery well before that, so 16 stands.
 static inline int64_t bpe_merge_small(const uint8_t* piece, int64_t n,
                                       const int32_t* byte_to_id,
                                       const int32_t* kl, const int32_t* kr,
@@ -1119,8 +1115,8 @@ struct NewRec {
 // In steady state the scan already knows every piece's resolved row
 // (uid -> uid_rows -> row matrix), so the token ids can be emitted
 // DURING the scan — eliminating the uid-buffer round trip and the
-// separate assemble re-walk entirely (measured: the two-phase pipeline
-// spends ~45% of its CPU in the assemble pass on warm streams).
+// separate assemble re-walk entirely (the two-phase pipeline spends a
+// large share of its CPU in the assemble pass on warm streams).
 //
 // Ordering/visibility protocol: uid_rows entries are written with
 // RELEASE (after the row's ids are complete) and read with ACQUIRE, so
@@ -1143,9 +1139,8 @@ struct EmitState {
   // Compact uid-keyed id table (nullable): [uid_cap, 8] int32 — slot 0
   // is the id count (release-published; 0 = unpublished/doesn't-fit),
   // slots 1..7 the ids.  The wide row matrix strides 512 B per row with
-  // ~8 useful bytes, so the steady-state emit gather thrashed L2/L3
-  // (measured 195 vs 271 MB/s single-thread against uid-mode on this
-  // box); at 32 B/entry the hot Zipf set stays L2-resident.  Pieces
+  // ~8 useful bytes, so the steady-state emit gather thrashed L2/L3;
+  // at 32 B/entry the hot Zipf set stays L2-resident.  Pieces
   // emitting > 7 ids (or overflow rows) read the wide matrix as before.
   const int32_t* uid_ids;
 };
@@ -1192,8 +1187,8 @@ struct FuseState {
   int32_t* uid_ids;   // nullable [uid_cap, 8] compact table (EmitState)
   std::atomic<int64_t> row_next;  // next free row (starts at _n_rows)
   std::atomic<int64_t> n_fused;   // pieces fully resolved in this call
-  // Optional FROZEN previous dedup generation (generational eviction,
-  // VERDICT r3 next #4): a first-seen piece probes the retired
+  // Optional FROZEN previous dedup generation (generational
+  // eviction): a first-seen piece probes the retired
   // context's intern table (lock-free — no writers exist once a
   // generation is frozen) and, on a hit, COPIES its already-resolved
   // row instead of re-merging, so a post-rotation stream warms at
@@ -1305,8 +1300,8 @@ struct MemoEnt {
 };
 constexpr int64_t MEMO_SLOTS = 1 << 16;  // 32 B/entry -> 2 MB
 
-// Second memo tier for 9-16-byte pieces (ROADMAP r3 #4): code corpora
-// put ~6% of pieces (13% of bytes) in this window — identifiers,
+// Second memo tier for 9-16-byte pieces: code corpora put a real share
+// of pieces and bytes in this window — identifiers,
 // ` function`-style words — and every repeat paid a DRAM snapshot
 // probe.  (k0, k1, len) is again the full zero-padded content, so a
 // match IS equality.  Thread-private like tier 1.
@@ -1419,8 +1414,8 @@ static int64_t scan_segment(Ctx* c, next_fn next, const uint8_t* buf,
   // inline-capable piece arrives with pieces staged: the inline fast
   // path must stay in piece order, and WITHOUT the early flush one
   // cold piece would drag the next 63 pieces into the staged path
-  // (measured: a rare word every ~37 pieces put whole batches on the
-  // slow path and cost ~25% of emit throughput).
+  // (a rare word every few dozen pieces would put whole batches on
+  // the slow path).
   auto flush = [&]() {
     for (int k = 0; k < nb; k++) {
       int32_t uid = pu[k];
@@ -1737,8 +1732,7 @@ int64_t tt_ctx_split(void* p, const uint8_t* buf, int64_t start, int64_t end,
 }
 
 // Oversized-segment subdivision: a single giant document is ONE scan
-// segment, which would pin the whole scan to one worker (measured:
-// 8 MB one-file docs cap the corpus pipeline at ~2 threads/chunk).
+// segment, which would pin the whole scan to one worker.
 // Split such segments at points where the piece decomposition is
 // PROVABLY position-independent, so subdivided output is bit-identical
 // to the whole-segment scan:

@@ -5,7 +5,7 @@ corpus folder's source files (.ts/.js/.py + common code/text types),
 loop encode for >= min_seconds and >= min_cycles, report
 ``{"totalSize": bytes, "cycles": [seconds, ...]}`` plus derived MB/s —
 the same JSON contract the reference's notebook consumes
-(`perf/notebook.ipynb` run_benchmark).  Profiling hooks are TPU-native:
+(`perf/notebook.ipynb` run_benchmark).  Profiling hooks use JAX's profiler:
 :func:`tokenizer_tpu.runtime.profiler.trace` wraps a cycle in
 ``jax.profiler.trace`` instead of the V8 inspector.
 """

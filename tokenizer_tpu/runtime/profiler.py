@@ -1,4 +1,4 @@
-"""Profiling/observability: the TPU-native replacement for the
+"""Profiling/observability: the JAX-profiler replacement for the
 reference's V8 CPU profiles and BenchmarkDotNet (SURVEY.md §5).
 
 * :func:`trace` — context manager around ``jax.profiler.trace``; writes

@@ -44,8 +44,8 @@ def utf16_len(s: str) -> int:
     """Length of ``s`` in UTF-16 code units (JS ``s.length``)."""
     # Each code point >= U+10000 encodes as a surrogate pair (2 units).
     # ASCII fast path (C-speed flag check); otherwise the UTF-16 encode
-    # runs in C where the old per-character loop cost ~10 us/call on
-    # trim-sized texts (profiled in the bulk-trim bookkeeping).
+    # runs in C instead of a per-character Python loop (this sits in
+    # the bulk-trim bookkeeping).
     if s.isascii():
         return len(s)
     return len(s.encode("utf-16-le", "surrogatepass")) // 2

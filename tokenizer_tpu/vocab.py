@@ -4,7 +4,7 @@ Covers the reference's rank-file handling: LoadTikTokenBpe parsing
 (`Tokenizer_C#/TokenizerLib/TikTokenizer.cs:99-139`,
 `tokenizer_ts/src/tikTokenizer.ts:13-44`) and the TS builder's
 fetch-and-cache of rank files (`tokenizer_ts/src/tokenizerBuilder.ts:106-121,
-269-285`).  TPU-first additions: a parsed binary cache (.npz) so 100k-200k
+269-285`).  Additions: a parsed binary cache (.npz) so 100k-200k
 line base64 files parse once per machine, and precomputation hooks for the
 device-side pair-merge hash table (see ops/pair_table.py).
 """
@@ -273,10 +273,10 @@ def load_encoding_ranks(encoder_name: str, allow_fetch: bool = True) -> Dict[byt
 
 
 class Vocabulary:
-    """A parsed rank table plus TPU-oriented derived structures.
+    """A parsed rank table plus device-oriented derived structures.
 
     The reference keeps only the two dictionaries (Encoder/Decoder,
-    TikTokenizer.cs:74-91).  The TPU build additionally derives, lazily:
+    TikTokenizer.cs:74-91).  This build additionally derives, lazily:
 
     * ``byte_to_id`` — int32[256] mapping each single byte to its token id
       (every tiktoken vocab contains all 256 single-byte tokens), used to

@@ -4,7 +4,7 @@ Targets: cl100k_synth (pattern 2, 100,256 ranks) and o200k_synth
 (pattern 3, 199,998 ranks) — run with target names as arguments.
 
 The driver environment has zero egress, so the real cl100k_base rank
-file cannot be fetched (VERDICT.md r2 missing #1/#2).  The north-star
+file cannot be fetched.  The north-star
 metric is "encode bytes/s/chip (cl100k_base)" — a 100k-token pair table
 probed through REGEX_PATTERN_2 — and nothing about that metric depends
 on WHICH 100k merges the table holds.  So this tool trains a 100,256-
